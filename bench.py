@@ -1,19 +1,20 @@
 #!/usr/bin/env python
-"""rt_tpu benchmark: forward+backward Mrays/s/chip on basic.toml 800x600@4spp.
+"""rt_tpu benchmark: forward+backward Mrays/s on the GPU, basic.toml 800x600@4spp.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: the device rate with the device it ran on
+(``platform``, ``device_kind``, ``device_count``, and ``card``: the
+card's name and power limit), the ``pipeline`` that ran, and the native C++ CPU
+tracer's forward rate as its own labelled number.  Without a GPU it fails;
+it never times the CPU backend under the device metric's name.
 
-North-star metric (BASELINE.json): forward+backward Mrays/s per chip at
-4 spp on scenes/basic.toml at 800x600, with the gradient allclose check
-passing.  "Rays" counts camera rays (W*H*spp) per fwd+bwd step — the same
-definition for baseline and TPU so the ratio is fair.
+"Rays" counts camera rays (W*H*spp) per fwd+bwd step.  The native tracer
+(native/rt_native.cpp) is the reference's documented renderer semantics
+compiled with the reference's release flags and a thread pool, measured
+*forward only* (the reference has no backward); its measurement is cached
+in .baseline_cpu.json.
 
-The baseline is the native C++ CPU tracer (native/rt_native.cpp) — the
-reference itself cannot be built in this sandbox (meson wraps need network),
-so the baseline is the same documented renderer semantics compiled with the
-reference's release flags and a thread pool, measured *forward only* (the
-reference has no backward at all; dividing our fwd+bwd rate by its fwd rate
-understates us).  The measurement is cached in .baseline_cpu.json.
+    python bench.py [--quick] [--size WxH] [--spp N] [--iters N]
+    python bench.py --scaling      # rays/s over meshes of 1, 2, 4... devices
 """
 
 from __future__ import annotations
@@ -28,20 +29,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 BASELINE_CACHE = os.path.join(REPO, ".baseline_cpu.json")
+BASIC = os.path.join(REPO, "scenes", "basic.toml")
+PIPELINE = "jnp autodiff: jax.value_and_grad(diff.image_loss), grad_mode='autodiff'"
 
 
 def measure_cpu_baseline(scene, size, spp, max_bounces) -> float:
-    """Mrays/s of the native CPU tracer (cached)."""
+    """Mrays/s of the native CPU tracer (cached); 0.0 if it cannot be built."""
     key = f"{size[0]}x{size[1]}x{spp}x{max_bounces}"
+    cache = {}
     if os.path.exists(BASELINE_CACHE):
         try:
-            cache = json.load(open(BASELINE_CACHE))
-            if key in cache:
-                return cache[key]
-        except Exception:
+            with open(BASELINE_CACHE) as f:
+                cache = json.load(f)
+        except (OSError, ValueError):
             cache = {}
-    else:
-        cache = {}
+        if key in cache:
+            return cache[key]
     from rt_tpu import _native
 
     if not _native.available():
@@ -54,34 +57,40 @@ def measure_cpu_baseline(scene, size, spp, max_bounces) -> float:
     _, secs = _native.render_mg_cpu(scene, size, spp=spp, max_bounces=max_bounces)
     mrays = size[0] * size[1] * spp / secs / 1e6
     cache[key] = mrays
-    json.dump(cache, open(BASELINE_CACHE, "w"))
+    with open(BASELINE_CACHE, "w") as f:
+        json.dump(cache, f)
     return mrays
 
 
-def scaling(args) -> None:
-    """Rays/s scaling-efficiency harness (BASELINE.json: >=85% at 1 chip /
-    1 host / N hosts).  Shards the render over meshes of 1..N devices and
-    reports efficiency vs the 1-device rate.  On this sandbox's single real
-    chip it degenerates to N=1; on the CPU backend it exercises the full
-    mesh ladder (virtual devices) — the same code path a real multi-chip
-    slice runs.  One JSON line per mesh size."""
-    import time
+def device_fields(devices) -> dict:
+    from rt_tpu import runtime
 
+    return {
+        "platform": devices[0].platform,
+        "device_kind": devices[0].device_kind,
+        "device_count": len(devices),
+        # name and power limit, as nvidia-smi reports them
+        "card": runtime.gpu_name_and_power(),
+    }
+
+
+def scaling(args, devices) -> None:
+    """Rays/s over meshes of 1, 2, 4... devices, and the efficiency against
+    the 1-device rate.  One JSON line per mesh size."""
     import jax
-    import numpy as np
 
     import rt_tpu
     from rt_tpu import dist
 
-    scene = rt_tpu.load("/root/reference/scenes/basic.toml")
+    scene = rt_tpu.load(BASIC)
     key = rt_tpu.rng.make_key(0)
     size = (512, 384)
     spp = args.spp or 4
-    n_dev = len(jax.devices())
     base_rate = None
     n = 1
-    while n <= n_dev:
-        mesh = dist.make_mesh(n, 1, devices=jax.devices()[:n])
+    fields = device_fields(devices)
+    while n <= len(devices):
+        mesh = dist.make_mesh(n, 1, devices=devices[:n])
 
         def render():
             return dist.render_image_sharded(
@@ -98,17 +107,13 @@ def scaling(args) -> None:
         rate = size[0] * size[1] * spp / dt / 1e6
         if base_rate is None:
             base_rate = rate
-        eff = rate / (base_rate * n)
-        row = {
+        print(json.dumps({
             "metric": f"scaling rays/s ({n} devices)",
-            "value": round(rate, 2), "unit": "Mrays/s",
-            "vs_baseline": round(eff, 3),
-        }
-        if jax.devices()[0].platform == "cpu":
-            # virtual devices share one physical CPU: the ladder validates
-            # the sharded code path, not real scaling efficiency
-            row["note"] = "virtual mesh (shared cores) — path check only"
-        print(json.dumps(row))
+            "value": rate, "unit": "Mrays/s",
+            "efficiency": rate / (base_rate * n),
+            "pipeline": "dist.render_image_sharded, mesh (n, 1)",
+            **fields,
+        }))
         n *= 2
 
 
@@ -122,31 +127,25 @@ def main():
                          "headline fwd+bwd benchmark")
     ap.add_argument("--iters", type=int, default=32,
                     help="steps per timed window; the metric is the MEDIAN "
-                         "over 5 async-pipelined windows (blocked once per "
-                         "window), via rt_tpu.profiling.sustained — the "
-                         "same measurement tools/bench_table.py uses")
+                         "over 9 async-pipelined windows (blocked once per "
+                         "window), via rt_tpu.profiling.sustained")
     args = ap.parse_args()
 
+    from rt_tpu import runtime
+
+    runtime.use_compile_cache()
+    devices = runtime.require_gpu()
     if args.scaling:
-        scaling(args)
+        scaling(args, devices)
         return
 
     import jax
-
-    # Persistent compilation cache: the fwd+bwd program takes minutes to
-    # compile on the TPU backend the first time; cache it across runs.
-    cache_dir = os.path.join(REPO, ".jax_cache")
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
     import jax.numpy as jnp
     import numpy as np
 
     import rt_tpu
     from rt_tpu import diff
+    from rt_tpu.profiling import sustained
 
     if args.quick:
         size, spp, max_bounces, iters = (160, 120), 2, 4, 1
@@ -158,159 +157,44 @@ def main():
     if args.spp:
         spp = args.spp
 
-    scene = rt_tpu.load("/root/reference/scenes/basic.toml")
+    scene = rt_tpu.load(BASIC)
     key = rt_tpu.rng.make_key(0)
     params = diff.extract_params(scene)
     target = jnp.zeros((size[1], size[0], 3), jnp.float32)
 
-    # Preferred pipeline: the fused Pallas forward+backward kernel
-    # (rt_tpu.ops.pallas_grad).  Falls back to the jnp autodiff path on
-    # scenes it can't handle or off-TPU.
-    use_fused = False
-    try:
-        from rt_tpu.ops.pallas_grad import make_mse_step, pallas_grad_supported
-
-        use_fused = (
-            pallas_grad_supported(scene)
-            and jax.devices()[0].platform not in ("cpu",)
-        )
-    except Exception:
-        use_fused = False
-
-    def make_jnp_fwd_bwd():
-        @jax.jit
-        def _fwd_bwd_jnp(params, key):
-            # autodiff beats replay-mode for small sphere tables (the (N,S)
-            # transpose replay avoids is tiny at S=8; replay pays a second
-            # forward); replay wins on the big procedural scenes.
-            return jax.value_and_grad(diff.image_loss)(
-                params, scene, target, size, key, spp=spp,
-                max_bounces=max_bounces, grad_mode="autodiff",
-            )
-
-        return lambda params, i: _fwd_bwd_jnp(params, rt_tpu.rng.fold(key, i))
-
-    if use_fused:
-        # Prebuilt step: host prep + target upload happen once; each timed
-        # call ships only an int32 seed (steady-state training-loop shape).
-        _step = make_mse_step(
-            params, scene, target, size, spp=spp, max_bounces=max_bounces,
+    @jax.jit
+    def fwd_bwd(params, key):
+        return jax.value_and_grad(diff.image_loss)(
+            params, scene, target, size, key, spp=spp,
+            max_bounces=max_bounces, grad_mode="autodiff",
         )
 
-        def fwd_bwd(params, i):
-            return _step(i)
-    else:
-        fwd_bwd = make_jnp_fwd_bwd()
+    stats = sustained(lambda i: fwd_bwd(params, rt_tpu.rng.fold(key, i))[1],
+                      iters=iters, windows=1 if args.quick else 9)
+    _, grads = fwd_bwd(params, key)
 
-    # compile + warm-up (fall back to the jnp pipeline on any fused failure)
-    try:
-        loss, grads = fwd_bwd(params, 0)
-        jax.block_until_ready(grads)
-    except Exception:
-        if not use_fused:
-            raise
-        fwd_bwd = make_jnp_fwd_bwd()
-        loss, grads = fwd_bwd(params, 0)
-        jax.block_until_ready(grads)
+    def rate(secs):
+        return size[0] * size[1] * spp / secs / 1e6
 
-    # unified measurement (rt_tpu.profiling.sustained, shared with
-    # tools/bench_table.py): median of >=5 pipelined windows + dispersion
-    from rt_tpu.profiling import sustained
-
-    stats = sustained(lambda i: fwd_bwd(params, i)[1], iters=iters,
-                      windows=1 if args.quick else 9)
-    secs = stats["median"]
-    mrays = size[0] * size[1] * spp / secs / 1e6
-    rate = lambda s: size[0] * size[1] * spp / s / 1e6
-
-    # Same-session forward-only reference row: the chip's absolute rate
-    # swings ±25% across sessions (memory: tpu-bench-variance), so the
-    # step/forward RATIO is the number that is comparable across rounds.
-    # The two measurements are INTERLEAVED window-by-window: even minutes
-    # apart in one process the chip state drifts enough to invert the
-    # ratio (round-4 CO job: fwd 647 -> 496 Mrays/s while the step went
-    # 575 -> 735 in the same session) — alternating windows samples the
-    # same state for both sides.
-    fwd_ref = ratio_step_over_fwd = None
-    if use_fused and not args.quick:
-        try:
-            from rt_tpu.ops.pallas_render import make_render_step
-
-            _fwd = make_render_step(scene, size, spp=spp,
-                                    max_bounces=max_bounces)
-            jax.block_until_ready(_fwd(0))
-
-            def _window(fn):
-                t0 = time.perf_counter()
-                for i in range(iters):
-                    out = fn(i)
-                jax.block_until_ready(out)
-                return (time.perf_counter() - t0) / iters
-
-            _window(_fwd)  # warm-up
-            f_ws, s_ws = [], []
-            for _ in range(9):
-                s_ws.append(_window(lambda i: fwd_bwd(params, i)[1]))
-                f_ws.append(_window(_fwd))
-            f_ws.sort()
-            s_ws.sort()
-            f_med = f_ws[len(f_ws) // 2]
-            s_med = s_ws[len(s_ws) // 2]
-            fwd_ref = rate(f_med)
-            # step time / forward time (~1.5 in round 3; lower is better)
-            ratio_step_over_fwd = s_med / f_med
-        except Exception:
-            pass
-
-    # gradient sanity: finite + a smooth-path FD check on reflectivity.
-    # When the fused Pallas kernel produced the benched gradients, the FD
-    # check goes through the KERNEL's own loss (same seed -> same hw-PRNG
-    # draws, so the difference quotient sees the same estimator the
-    # analytic gradient differentiates); otherwise the jnp pipeline.
+    # gradient sanity: finite + a smooth-path FD check on reflectivity
     grad_ok = bool(all(np.all(np.isfinite(np.asarray(g))) for g in grads.values()))
     if grad_ok and not args.quick:
-        eps = 1e-3
-        name = "materials.reflectivity"
-        p_hi = dict(params); p_hi[name] = params[name].at[0].set(params[name][0] + eps)
-        p_lo = dict(params); p_lo[name] = params[name].at[0].set(params[name][0] - eps)
         small = (200, 150)
-        tgt_s = jnp.zeros((small[1], small[0], 3), jnp.float32)
-        base_args = dict(spp=2, max_bounces=4)
-        if use_fused:
-            from rt_tpu.ops.pallas_grad import pallas_mse_loss_and_grad
+        _, _, grad_ok = diff.fd_check(
+            params, scene, jnp.zeros((small[1], small[0], 3), jnp.float32),
+            small, key, "materials.reflectivity", 0, spp=2, max_bounces=4)
 
-            kw = dict(seed=17, **base_args)
-            _, g_small = pallas_mse_loss_and_grad(
-                params, scene, tgt_s, small, **kw)
-            l_hi, _ = pallas_mse_loss_and_grad(p_hi, scene, tgt_s, small, **kw)
-            l_lo, _ = pallas_mse_loss_and_grad(p_lo, scene, tgt_s, small, **kw)
-            l_hi, l_lo = float(l_hi), float(l_lo)
-        else:
-            l_hi = float(diff.image_loss(p_hi, scene, tgt_s, small, key, **base_args))
-            l_lo = float(diff.image_loss(p_lo, scene, tgt_s, small, key, **base_args))
-            _, g_small = diff.loss_and_grad(params, scene, tgt_s, small, key, **base_args)
-        fd = (l_hi - l_lo) / (2 * eps)
-        an = float(g_small[name][0])
-        grad_ok = abs(an - fd) <= max(2e-2 * abs(fd), 1e-4)
-
-    baseline_mrays = measure_cpu_baseline(scene, size, spp, max_bounces)
-    vs_baseline = mrays / baseline_mrays if baseline_mrays > 0 else 0.0
-
-    row = {
-        "metric": "fwd+bwd Mrays/s/chip (basic.toml %dx%d @ %dspp, depth %d, grad_ok=%s)"
+    print(json.dumps({
+        "metric": "fwd+bwd Mrays/s (basic.toml %dx%d @ %dspp, depth %d, grad_ok=%s)"
                   % (size[0], size[1], spp, max_bounces, grad_ok),
-        "value": round(mrays, 3),
+        "value": rate(stats["median"]),
         "unit": "Mrays/s",
-        "vs_baseline": round(vs_baseline, 3),
         # dispersion across the measured windows (median is the headline)
-        "spread": [round(rate(stats["max"]), 1), round(rate(stats["min"]), 1)],
-    }
-    if fwd_ref is not None:
-        # same-session forward-only rate + step/forward time ratio — the
-        # session-invariant number (absolutes swing ±25% between sessions)
-        row["fwd_ref"] = round(fwd_ref, 1)
-        row["ratio_step_over_fwd"] = round(ratio_step_over_fwd, 3)
-    print(json.dumps(row))
+        "spread": [rate(stats["max"]), rate(stats["min"])],
+        "pipeline": PIPELINE,
+        **device_fields(devices),
+        "native_cpu_fwd_mrays": measure_cpu_baseline(scene, size, spp, max_bounces),
+    }))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,21 @@
 #!/usr/bin/env python
 """Big-scene inverse rendering: optimize albedos in a procedural N-sphere
-scene with the blockwise fused forward+backward Pallas kernel.
+scene with ``train.make_train_step`` and replay gradients.
 
-At hundreds-to-thousands of spheres the jnp autodiff program becomes
-uncompilable and the baked-constant megakernel would recompile every step;
-the blockwise pipeline (rt_tpu.ops.pallas_blockwise_grad) rebuilds the
-primitive tables from the traced parameters on-device each step, so a full
-optax loop runs at kernel speed with zero recompiles.
+Replay mode (rt_tpu.replay) records the discrete path structure in the
+forward pass and differentiates a cheap replay of it, so the backward pass
+never transposes the (rays x spheres) closest-hit scan; the scene tables
+are traced parameters, so a full optax loop runs with zero recompiles.
 
 Usage:
-    python examples/big_scene_training.py --spheres 500        # real TPU
-    python examples/big_scene_training.py --cpu --spheres 24   # interpret mode
+    python examples/big_scene_training.py --spheres 500
+    python examples/big_scene_training.py --cpu --spheres 24   # small, on the CPU
 """
 
 import argparse
 import os
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -27,7 +27,7 @@ def main():
     ap.add_argument("--size", default=None, help="WxH (default 400x300)")
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--cpu", action="store_true",
-                    help="CPU interpret mode (use a small --spheres)")
+                    help="run on the CPU backend (use a small --spheres)")
     args = ap.parse_args()
 
     import jax
@@ -36,11 +36,10 @@ def main():
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
-    import numpy as np
     import optax
 
     import rt_tpu
-    from rt_tpu.train import make_kernel_train_step
+    from rt_tpu import diff, train
 
     if args.size:
         w, h = (int(x) for x in args.size.split("x"))
@@ -48,36 +47,24 @@ def main():
         w, h = (96, 64) if args.cpu else (400, 300)
 
     scene = rt_tpu.scene.make_procedural_scene(args.spheres)
-    true_albedo = scene.materials.albedo
+    true_params = diff.extract_params(scene)
+    opts = dict(spp=args.spp, max_bounces=4)
 
-    # target = render with the true albedos; start from gray
-    from rt_tpu.ops.pallas_blockwise import render_forward_blockwise
-
-    # gamma=False: every gradient pipeline optimizes PRE-gamma radiance
-    # (rt_tpu.diff docstring — sqrt gamma has an infinite derivative at 0),
-    # so targets must be rendered pre-gamma too
-    target = render_forward_blockwise(
-        scene, (w, h), seed=0, spp=args.spp, max_bounces=4, gamma=False,
-        rng_impl="hash" if args.cpu else "hw", interpret=args.cpu,
-    )
-    params = {"materials.albedo": jnp.full_like(true_albedo, 0.5)}
+    # target = render with the true albedos (pre-gamma, like every loss in
+    # rt_tpu.diff); start from gray
+    target = diff.render_for_loss(true_params, scene, (w, h),
+                                  rt_tpu.rng.make_key(0), **opts)
+    params = {"materials.albedo": jnp.full_like(true_params["materials.albedo"], 0.5)}
 
     optimizer = optax.adam(5e-2)
-    # routes to the wavefront record/reverse pipeline for many-primitive
-    # scenes (>=1024 padded — the TRAIN crossover sits below the
-    # forward-only 2048), the pixel-major blockwise step below
-    step = make_kernel_train_step(
-        optimizer, scene, jnp.asarray(target), (w, h),
-        spp=args.spp, max_bounces=4,
-        rng_impl="hash" if args.cpu else "hw", interpret=args.cpu,
-    )
-
+    step = train.make_train_step(optimizer, scene, target, (w, h),
+                                 grad_mode="replay", **opts)
     opt_state = optimizer.init(params)
-    import time
+    key = rt_tpu.rng.make_key(1)
 
     t0 = time.perf_counter()
     for i in range(args.steps):
-        params, opt_state, loss = step(params, opt_state, i)
+        params, opt_state, loss = step(params, opt_state, rt_tpu.rng.fold(key, i))
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {float(loss):.6f}")
     jax.block_until_ready(loss)
@@ -85,23 +72,19 @@ def main():
     # the inverse problem is under-constrained at demo sizes (some of the
     # 12 materials barely appear in the image), so albedo recovery is not
     # the right success metric — image-space error against a held-out
-    # render (fresh seed) is what the loss actually optimizes
-    import dataclasses
+    # render (fresh key) is what the loss actually optimizes
+    holdout_key = rt_tpu.rng.make_key(12345)
 
-    def render_with(albedo, seed):
-        sc = dataclasses.replace(
-            scene, materials=dataclasses.replace(scene.materials,
-                                                 albedo=albedo))
-        return render_forward_blockwise(
-            sc, (w, h), seed=seed, spp=args.spp, max_bounces=4, gamma=False,
-            rng_impl="hash" if args.cpu else "hw", interpret=args.cpu)
+    def render_with(albedo):
+        return diff.render_for_loss({"materials.albedo": albedo}, scene, (w, h),
+                                    holdout_key, **opts)
 
-    holdout = render_with(true_albedo, seed=12345)
-    img0 = render_with(jnp.full_like(true_albedo, 0.5), seed=12345)
-    img1 = render_with(params["materials.albedo"], seed=12345)
-    e0 = float(jnp.abs(img0 - holdout).mean())
-    e1 = float(jnp.abs(img1 - holdout).mean())
-    print(f"{dt * 1e3:.1f} ms/step; held-out image MAE {e0:.4f} -> {e1:.4f}")
+    holdout = render_with(true_params["materials.albedo"])
+    gray = jnp.full_like(true_params["materials.albedo"], 0.5)
+    e0 = float(jnp.abs(render_with(gray) - holdout).mean())
+    e1 = float(jnp.abs(render_with(params["materials.albedo"]) - holdout).mean())
+    print(f"{dt * 1e3:.1f} ms/step (first step includes compilation); "
+          f"held-out image MAE {e0:.4f} -> {e1:.4f}")
 
 
 if __name__ == "__main__":

@@ -241,8 +241,8 @@ static inline bool closest_hit(const SceneArrays& sc, V3 o, V3 d, Hit& h) {
 // mg_ray_tracer.cpp:142-152); personality 1 = sm (adds the dielectric
 // family: dielectric/air/vacuum/water/ice -> dielectric_scatter, diamond
 // stays lambert, sm_ray_tracer.cpp:221-236).  The dielectric math mirrors
-// the rt_tpu kernel's documented estimator (sm_ray_tracer.cpp:181-219
-// semantics with normalized scatter directions) so TPU-vs-CPU ratios
+// the JAX renderer's documented estimator (sm_ray_tracer.cpp:181-219
+// semantics with normalized scatter directions) so device-vs-CPU ratios
 // compare matched estimators.
 static V3 trace(const SceneArrays& sc, V3 o, V3 d, int max_bounces, Rng& rng,
                 int personality) {

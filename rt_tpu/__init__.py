@@ -1,10 +1,10 @@
-"""rt_tpu — a TPU-native differentiable path tracer.
+"""rt_tpu — a differentiable path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of marzer/rt
+A from-scratch JAX/XLA re-design of the capabilities of marzer/rt
 (the reference C++ software renderer at /root/reference): TOML scenes,
 pinhole camera, SoA sphere/plane/box intersection, lambert/metal/dielectric
-scattering, Monte-Carlo accumulation — implemented as vectorized wavefront
-kernels over device meshes, fully differentiable w.r.t. scene parameters.
+scattering, Monte-Carlo accumulation — implemented as a vectorized
+wavefront over device meshes, fully differentiable w.r.t. scene parameters.
 
 Layer map (cf. SURVEY.md §1):
   colour     — colour model + named colours          (L1)

@@ -109,9 +109,9 @@ def generate_rays(camera, size: tuple[int, int], pixel_pos: jax.Array):
     ny = 1.0 - 2.0 * (pixel_pos[..., 1] / h)
     # View-space direction through the pixel (camera looks down -z).
     d_view = jnp.stack([nx * th * aspect, ny * th, -jnp.ones_like(nx)], axis=-1)
-    # R @ d, batched.  precision="highest": TPU f32 matmuls default to
-    # bf16 passes — a 1e-3 direction error that flips hit decisions
-    # (the Pallas kernels use explicit mul-adds and stay full f32)
+    # R @ d, batched.  precision="highest": without it the GPU may run
+    # this f32 product in TF32 (about three decimal digits), a direction
+    # error that flips hit decisions on grazing geometry
     d_world = jnp.matmul(d_view, camera.rotation.T, precision="highest")
     origins = camera.position + d_world * camera.near
     directions = d_world / jnp.linalg.norm(d_world, axis=-1, keepdims=True)

@@ -7,7 +7,7 @@ Mirrors the reference app driver (/root/reference/src/main.cpp:331-366):
   search prefixes (scene.cpp:620-643).
 * ``--renderer``: fuzzy prefix resolution, default ``mg`` (main.cpp:346-351).
 
-There is no SDL window in a TPU pod, so the interactive loop becomes:
+An accelerator host has no SDL window, so the interactive loop becomes:
 render → write an image file, with ``--watch`` reproducing the hot-reload
 loop (mtime polled every 0.5 s, main.cpp:235-249; a failed reload logs the
 error and keeps the previous scene, main.cpp:127-132).
@@ -26,7 +26,7 @@ __all__ = ["main", "build_parser"]
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="rt",
-        description="rt_tpu — TPU-native differentiable path tracer",
+        description="rt_tpu — a differentiable path tracer in JAX",
     )
     ap.add_argument("-l", "--list", action="store_true",
                     help="list available renderers and exit")
@@ -77,6 +77,7 @@ def main(argv=None) -> int:
 
     import rt_tpu
     from rt_tpu import renderer as registry
+    from rt_tpu import runtime
 
     if args.list:
         for d in registry.all_renderers():
@@ -89,6 +90,7 @@ def main(argv=None) -> int:
         _error(f"bad --size '{args.size}' (expected WxH)")
         return 2
 
+    runtime.use_compile_cache()
     if args.interactive:
         from .viewer import interactive
 

@@ -16,14 +16,11 @@ which would poison gradients of black pixels.
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Any, Optional
+from typing import Any
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
-from . import rng as _rng
 from .integrator import render_image
 
 __all__ = [
@@ -32,6 +29,7 @@ __all__ = [
     "render_for_loss",
     "image_loss",
     "loss_and_grad",
+    "fd_check",
 ]
 
 # Differentiable leaves, as (field path) pairs.
@@ -110,260 +108,20 @@ def loss_and_grad(params, scene, target, size, key, **opts):
     return jax.value_and_grad(image_loss)(params, scene, target, size, key, **opts)
 
 
-def pallas_loss_and_grad(
-    params,
-    scene,
-    target,
-    size,
-    seed: int = 0,
-    *,
-    spp: int = 4,
-    max_bounces: int = 8,
-    personality: str = "mg",
-    rng_mode: str = "reference",
-    rng_impl: str = "hw",
-    interpret: bool = False,
-    include_boxes: bool = False,
-):
-    """(loss, grads) with the Pallas megakernel as the forward/record pass
-    and the jnp replay as the differentiable pass.  ``include_boxes``
-    extends both passes to the --boxes extension (kind=3 records +
-    smooth slab replay; boxes.center/extents gradients flow).
-
-    The megakernel bakes primitive/material values as compile-time
-    constants, so the record pass runs at the *concrete* ``params`` (applied
-    host-side) and the kernel recompiles if those values change between
-    calls.  This makes the pipeline ideal for (a) repeated gradient
-    evaluation at fixed scene parameters (benchmarking, sensitivity
-    analysis) and (b) optimizing **camera pose only** (the camera is a
-    dynamic kernel input — no recompiles).  For full scene-parameter
-    training loops use the jnp paths (grad_mode="replay"/"autodiff").
-    """
-    import jax.numpy as jnp
-
-    from .ops.pallas_render import _flatten_primitives, pallas_supported
-
-    w, h = size
-    concrete = apply_params(scene, jax.tree_util.tree_map(
-        lambda x: jnp.asarray(x), params))
-    use_boxes = include_boxes and scene.boxes.count > 0
-    seeds = jnp.asarray([seed * 100003 + s for s in range(spp)], jnp.int32)
-
-    if not pallas_supported(concrete, include_boxes):
-        # past the unrolled cap: the BLOCKWISE record pass (runtime
-        # tables — no recompiles on parameter changes, round 5)
-        from .ops.pallas_blockwise import (_box_inputs, _bucket,
-                                           _padded_table,
-                                           blockwise_supported)
-
-        if not blockwise_supported(concrete, include_boxes):
-            raise ValueError("scene exceeds every record-kernel limit")
-        s_cols, p_cols = _flatten_primitives(concrete, personality)
-        s_pad = _bucket(concrete.spheres.count)
-        p_pad = _bucket(concrete.planes.count)
-        s_tab = jnp.asarray(_padded_table(s_cols, s_pad))
-        p_tab = jnp.asarray(_padded_table(p_cols, p_pad))
-        b_pad, btab = _box_inputs(concrete, personality, use_boxes)
-        run = _records_pipeline_bw(
-            width=w, height=h, spp=spp, max_bounces=max_bounces,
-            personality=personality, rng_mode=rng_mode, rng_impl=rng_impl,
-            interpret=interpret, include_boxes=use_boxes,
-            s_pad=s_pad, p_pad=p_pad, b_pad=b_pad,
-            n_sph=concrete.spheres.count, n_pln=concrete.planes.count,
-            n_box=concrete.boxes.count,
-        )
-        return run(params, scene, jnp.asarray(target), seeds,
-                   s_tab, p_tab, *btab)
-
-    s_cols, p_cols = _flatten_primitives(concrete, personality)
-    key_bytes = (s_cols.tobytes(), p_cols.tobytes())
-    key_shapes = (s_cols.shape, p_cols.shape)
-    if use_boxes:
-        from .ops.pallas_render import _flatten_boxes
-
-        bx = _flatten_boxes(concrete, personality)
-        key_bytes += (bx.tobytes(),)
-        key_shapes += (bx.shape,)
-    _note_records_scene(_scene_static_key(scene), key_bytes)
-    run = _records_pipeline(
-        key_bytes, key_shapes,
-        _scene_static_key(scene),
-        width=w, height=h, spp=spp, max_bounces=max_bounces,
-        personality=personality, rng_mode=rng_mode,
-        rng_impl=rng_impl, interpret=interpret, include_boxes=use_boxes,
-    )
-    return run(params, scene, jnp.asarray(target), seeds)
-
-
-_records_seen: dict = {}
-
-
-def _note_records_scene(static_key, scene_bytes) -> None:
-    """Log every time the records pipeline is handed *changed* scene bytes
-    for an already-seen scene shape: the megakernel bakes primitive values
-    as constants, so each change silently recompiles — per-step parameter
-    updates through this pipeline are a misuse that now shows up in the
-    log instead of as mystery slowness (use grad_mode='replay'/'autodiff'
-    or the fused pallas step for training loops)."""
-    prev = _records_seen.get(static_key)
-    h = hash(scene_bytes)
-    if prev is not None and prev != h:
-        from .log import warn
-
-        warn("pallas records pipeline: scene parameter values changed — "
-             "the megakernel bakes them as constants, so this call "
-             "recompiles the record kernels (seconds, cached by content). "
-             "For per-step parameter updates use grad_mode='replay' or the "
-             "fused pallas training step instead.")
-    _records_seen[static_key] = h
-
-
-def _scene_static_key(scene):
-    """Hashable key capturing the pytree structure of a scene (so the cached
-    jitted pipeline isn't reused across incompatible scenes)."""
-    return (
-        scene.spheres.center.shape, scene.planes.normal.shape,
-        scene.materials.albedo.shape, scene.spheres.count,
-        scene.planes.count, scene.materials.count,
-    )
-
-
-def _record_cam_vec(camera, w, h):
-    """Packed camera vector for a record kernel, pose stop-gradiented
-    (params reach the loss only through the replay below)."""
-    return jnp.concatenate([
-        jax.lax.stop_gradient(jnp.asarray(camera.position, jnp.float32)),
-        jax.lax.stop_gradient(
-            jnp.asarray(camera.rotation, jnp.float32)).reshape(-1),
-        jnp.asarray([np.tan(camera.vfov * 0.5), w / h,
-                     camera.near, 0.0], jnp.float32),
-    ])
-
-
-def _decode_record(out, n, max_bounces):
-    """Record-kernel output tuple -> the flat per-bounce record dict."""
-    from .ops.pallas_render import records_to_flat
-
-    _, kind, idx, bits, urx, ury, urz, coin, jit_ = out
-    return records_to_flat({
-        "kind": kind, "idx": idx, "bits": bits,
-        "urx": urx, "ury": ury, "urz": urz, "coin": coin,
-        "jitter": jit_,
-    }, n, max_bounces)
-
-
-def _replay_value_and_grad(params, scene, target, rec_sets, *, size,
-                           personality, max_bounces, include_boxes, grid):
-    """Differentiate the cheap replay over the recorded path structure —
-    the shared tail of the two record pipelines (baked-constant and
-    blockwise): MSE on the pre-gamma mean of the per-sample replays."""
-    from .camera import generate_rays
-    from .replay import PathRecords, replay_radiance
-
-    w, h = size
-    n = w * h
-
-    def loss_fn(p):
-        sc = apply_params(scene, p)
-        acc = jnp.zeros((n, 3), jnp.float32)
-        for rec in rec_sets:
-            o, d = generate_rays(sc.camera, (w, h), grid + rec["jitter"])
-            pr = PathRecords(
-                kind=rec["kind"], idx=rec["idx"], root_lo=rec["root_lo"],
-                live_in=rec["live_in"], miss=rec["miss"],
-                alive_out=rec["alive_out"], reflect_bit=rec["reflect_bit"],
-                lam_deg=rec["lam_deg"],
-            )
-            acc = acc + replay_radiance(
-                sc, o, d, None, pr,
-                personality=personality, max_bounces=max_bounces,
-                draws=(rec["ur"], rec["coin"]),
-                include_boxes=include_boxes,
-            )
-        img = (acc / len(rec_sets)).reshape(h, w, 3)
-        return jnp.mean((img - target) ** 2)
-
-    return jax.value_and_grad(loss_fn)(params)
-
-
-@functools.lru_cache(maxsize=8)
-def _records_pipeline(scene_bytes, shapes, static_key, *, width, height, spp,
-                      max_bounces, personality, rng_mode,
-                      rng_impl="hw", interpret=False, include_boxes=False):
-    """Jitted end-to-end records pipeline: record kernels (baked constants) +
-    differentiable replay + MSE value_and_grad in ONE dispatch."""
-    from .integrator import _pixel_grid
-    from .ops.pallas_render import _compiled_record
-
-    w, h = width, height
-    n = w * h
-    rows = 16
-
-    rec_calls = [
-        _compiled_record(scene_bytes, shapes, width=w, height=h,
-                         max_bounces=max_bounces, rows=rows,
-                         rng_mode=rng_mode, center_sample=(s == 0),
-                         rng_impl=rng_impl, interpret=interpret,
-                         include_boxes=include_boxes)
-        for s in range(min(spp, 2))
-    ]
-    grid = _pixel_grid((w, h))
-
-    @jax.jit
-    def run(params, scene, target, seeds):
-        # record pass (non-differentiable pallas outputs)
-        cam = _record_cam_vec(scene.camera, w, h)
-        rec_sets = []
-        for s in range(spp):
-            call = rec_calls[0] if s == 0 else rec_calls[1 % len(rec_calls)]
-            rec_sets.append(_decode_record(call(cam, seeds[s:s + 1]),
-                                           n, max_bounces))
-        return _replay_value_and_grad(
-            params, scene, target, rec_sets, size=(w, h),
-            personality=personality, max_bounces=max_bounces,
-            include_boxes=include_boxes, grid=grid)
-
-    return run
-
-
-@functools.lru_cache(maxsize=8)
-def _records_pipeline_bw(*, width, height, spp, max_bounces, personality,
-                         rng_mode, rng_impl, interpret, include_boxes,
-                         s_pad, p_pad, b_pad, n_sph, n_pln, n_box):
-    """Blockwise-record twin of :func:`_records_pipeline` for scenes past
-    the unrolled kernel's cap: the record pass streams RUNTIME primitive
-    tables (no recompiles when parameter values change between calls —
-    the property the baked-constant pipeline gives up), the replay is the
-    same differentiable jnp pass.  Covers the --boxes extension (kind=3
-    records from the blockwise slab scan)."""
-    from .integrator import _pixel_grid
-    from .ops.pallas_blockwise import _compiled_bw_record
-
-    w, h = width, height
-    n = w * h
-    block = 8 if max(s_pad, p_pad) <= 128 else 128
-    rec_calls = [
-        _compiled_bw_record(width=w, height=h, s_pad=s_pad, p_pad=p_pad,
-                            max_bounces=max_bounces, rng_mode=rng_mode,
-                            rng_impl=rng_impl, center_sample=(s == 0),
-                            interpret=interpret, block=block, b_pad=b_pad)
-        for s in range(min(spp, 2))
-    ]
-    grid = _pixel_grid((w, h))
-
-    @jax.jit
-    def run(params, scene, target, seeds, s_tab, p_tab, *btab):
-        cam = _record_cam_vec(scene.camera, w, h)
-        rec_sets = []
-        for s in range(spp):
-            call = rec_calls[0] if s == 0 else rec_calls[1 % len(rec_calls)]
-            meta = jnp.stack([seeds[s], jnp.int32(n_sph), jnp.int32(n_pln),
-                              jnp.int32(0), jnp.int32(n_box)])
-            rec_sets.append(_decode_record(call(meta, cam, s_tab, p_tab,
-                                                *btab), n, max_bounces))
-        return _replay_value_and_grad(
-            params, scene, target, rec_sets, size=(w, h),
-            personality=personality, max_bounces=max_bounces,
-            include_boxes=include_boxes, grid=grid)
-
-    return run
+def fd_check(params, scene, target, size, key, name: str, index=0, *,
+             eps: float = 1e-3, **opts):
+    """Central finite difference of :func:`image_loss` in one parameter
+    element against the analytic gradient.  Returns ``(analytic, fd, ok)``
+    with ok = |analytic - fd| <= max(2e-2 |fd|, 1e-4): the draws are the
+    same on both sides (fixed key), so only a wrong gradient or a path flip
+    inside +-eps separates them."""
+    p_hi = dict(params)
+    p_hi[name] = params[name].at[index].add(eps)
+    p_lo = dict(params)
+    p_lo[name] = params[name].at[index].add(-eps)
+    l_hi = float(image_loss(p_hi, scene, target, size, key, **opts))
+    l_lo = float(image_loss(p_lo, scene, target, size, key, **opts))
+    fd = (l_hi - l_lo) / (2 * eps)
+    _, grads = loss_and_grad(params, scene, target, size, key, **opts)
+    an = float(grads[name][index])
+    return an, fd, abs(an - fd) <= max(2e-2 * abs(fd), 1e-4)

@@ -2,8 +2,8 @@
 
 The reference's only parallelism is a shared-memory thread pool over pixels
 (``threads.for_range(0, W*H, worker)``, mg_ray_tracer.cpp:203-204) and its
-only "collective" is the pool join.  The TPU-native design (SURVEY.md §2
-parallelism table) replaces it with a ``jax.sharding.Mesh``:
+only "collective" is the pool join.  Here (SURVEY.md §2 parallelism table)
+a ``jax.sharding.Mesh`` replaces it:
 
 * **'rays' axis** — data parallelism over pixels/rays: each device renders a
   contiguous slice of the flattened pixel array via ``shard_map``.  The RNG
@@ -12,13 +12,16 @@ parallelism table) replaces it with a ``jax.sharding.Mesh``:
 * **'prims' axis** (optional) — the sequence-parallel analogue for giant
   scenes (SURVEY.md §5 long-context): the sphere table is sharded, each
   device intersects its slice, and the per-shard winners are combined with
-  an ``all_gather`` + min-reduce over the axis (the collective rides ICI).
+  an ``all_gather`` + min-reduce over the axis.
 * Gradients: a loss over the sharded framebuffer transposes through
-  ``shard_map`` into a ``psum`` of parameter gradients — XLA schedules the
-  all-reduce overlapped with the backward pass.
+  ``shard_map`` into a ``psum`` of parameter gradients.  XLA schedules
+  that all-reduce; whether it overlaps the backward pass has not been
+  measured.
 
 Multi-host: ``initialize()`` wraps ``jax.distributed.initialize``; the same
-mesh API spans all hosts' devices (DCN between hosts, ICI within).
+mesh API spans the devices of all processes.  The mesh shape follows the
+algorithm alone: every card of an NVLink host reaches every other at the
+same rate.
 """
 
 from __future__ import annotations
@@ -29,12 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-try:
-    from jax import shard_map
-    _SMAP_NOCHECK = {"check_vma": False}
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
-    _SMAP_NOCHECK = {"check_rep": False}
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from . import rng as _rng
@@ -224,7 +222,7 @@ def render_image_sharded(
         mesh=mesh,
         in_specs=(scene_spec, P("rays"), P()),
         out_specs=P("rays"),
-        **_SMAP_NOCHECK,
+        check_vma=False,
     )(scene, grid, key)
 
     img = rad[:n]

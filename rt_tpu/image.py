@@ -2,7 +2,7 @@
 
 The reference's ``image`` (/root/reference/src/image.hpp:10-91) is an owning
 64-byte-aligned uint32 RGBA8888 buffer, blitted to screen via SDL
-(back_buffer.cpp:40-50); pixels only ever live in the texture.  The TPU
+(back_buffer.cpp:40-50); pixels only ever live in the texture.  This
 framework renders float radiance on device and needs real export for the
 parity/benchmark harness, so this module adds what the reference lacks
 (SURVEY.md §5 checkpoint/resume): RGBA8888 packing plus PNG / PPM / NPY

@@ -2,7 +2,7 @@
 
 The reference traces recursively per pixel on a CPU thread pool
 (/root/reference/src/renderers/mg_ray_tracer.cpp:155-204).  Recursion and
-per-ray branching don't map to a vector machine; the TPU-native design is a
+per-ray branching don't map to a vector machine; the design here is a
 *wavefront*: a flat ray batch advances through a ``lax.scan`` over bounce
 depth with live-ray masks, accumulating throughput, and the whole pixel x
 sample space is just batch dimensions sharded across chips.
@@ -151,8 +151,7 @@ def render_image(
     Mirrors the per-pixel worker (mg_ray_tracer.cpp:182-204): spp samples,
     sample 0 at the pixel centre, mean, sqrt gamma.  ``ray_chunk`` bounds the
     live ray batch to cap the (rays x primitives) intermediate; the chunks
-    are processed by a sequential scan (the analogue of streaming tiles
-    through VMEM).
+    are processed by a sequential scan.
     """
     w, h = size
     if spp is None:

@@ -2,10 +2,8 @@
 
 The reference's observability is bare stdout/stderr helpers
 (/root/reference/src/main.cpp:30-47); this module keeps that posture and
-adds ``warn_once`` so performance-relevant silent fallbacks (replay→autodiff
-downgrade on a prims-sharded mesh, auto-renderer falling back jnp-ward,
-records-pipeline recompiles) are visible exactly once instead of silently
-eating a 10-100x slowdown.
+adds ``warn_once`` so silent fallbacks (such as a checkpoint resumed
+without its optimizer state) are visible exactly once.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 
 The reference dispatches through a constexpr function-pointer table indexed
 by ``material_type`` (/root/reference/src/renderers/mg_ray_tracer.cpp:142-152,
-sm_ray_tracer.cpp:221-236).  On TPU, per-ray function pointers don't
-vectorize; instead every BRDF is evaluated for every ray and the result is
-blended with a one-hot select over the material *class* — a dense
-"mixture-of-BRDFs" router.
+sm_ray_tracer.cpp:221-236).  Per-ray function pointers don't vectorize
+over a flat ray batch; instead every BRDF is evaluated for every ray and
+the result is blended with a one-hot select over the material *class* — a
+dense "mixture-of-BRDFs" router.
 
 Renderer personalities map the 8 material types onto 3 BRDF classes:
 
@@ -89,13 +89,12 @@ def scatter(
     parameters and geometry; the class/coin decisions are detached.
 
     Material parameters are fetched with a one-hot contraction over the
-    (small, padded) material table: on TPU this runs on the MXU and its
-    transpose — the material-parameter gradient — is another contraction
-    instead of a scatter-add."""
+    (small, padded) material table: its transpose — the material-parameter
+    gradient — is another contraction instead of a scatter-add."""
     m = materials.albedo.shape[0]
     mat_onehot = jax.nn.one_hot(mat_idx, m, dtype=jnp.float32)  # (N, M)
-    # precision="highest": exact one-hot fetch (bf16 passes would round
-    # the fetched f32 payload values on TPU)
+    # precision="highest": exact one-hot fetch (a TF32 product on the GPU
+    # would round the fetched f32 payload values)
     albedo = jnp.matmul(mat_onehot, materials.albedo,
                         precision="highest")[:, :3]              # (N, 3)
     roughness = jnp.matmul(mat_onehot, materials.roughness,

@@ -72,9 +72,9 @@ def _select_min(t: jax.Array):
     """(t_best, idx, onehot) for a (N, S) candidate matrix.
 
     The winner is extracted with a one-hot reduction instead of a gather:
-    on TPU the transpose of a gather is a scatter-add (slow to compile and
-    run inside nested scans), while the transpose of the one-hot contraction
-    is another contraction that lands on the MXU.
+    the transpose of a gather is a scatter-add, while the transpose of the
+    one-hot contraction is another contraction.  Whether a gather is
+    cheaper on the GPU has not been measured.
     """
     idx = jnp.argmin(t, axis=-1)
     onehot = jax.nn.one_hot(idx, t.shape[-1], dtype=t.dtype)
@@ -115,8 +115,8 @@ def hit_spheres(origins, dirs, centers, radii, count, *, min_dist=MIN_HIT_DIST):
 def plane_t_matrix(origins, dirs, normals, ds, count, *, min_dist=MIN_HIT_DIST):
     """(N, P) per-pair plane hit distances (double-sided).  n·x + d = 0 →
     t = -(n·o + d) / (n·dir)."""
-    # precision="highest": TPU f32 matmuls default to bf16 passes — the
-    # resulting 1e-3 error flips hit/tie decisions on grazing planes
+    # precision="highest": keeps this f32 product out of TF32 on the GPU,
+    # whose rounding flips hit/tie decisions on grazing planes
     ndotd = jnp.matmul(dirs, normals.T, precision="highest")   # (N, P)
     ndoto = jnp.matmul(origins, normals.T,
                        precision="highest") + ds[None, :]      # (N, P)
@@ -171,8 +171,9 @@ def sphere_stage(spheres, origins, dirs, *, min_dist: float = MIN_HIT_DIST):
     Split out so a primitive-sharded caller (rt_tpu.dist) can run it on a
     table shard and all-gather the per-shard winners before the cross-class
     select.  The winner's centre is extracted with a one-hot contraction
-    (MXU-friendly; its transpose is the sphere-centre gradient without any
-    scatter).  The material id is an integer gather (no tangents).
+    (its transpose is the sphere-centre gradient without any scatter; at
+    precision="highest" the fetch is exact, with no TF32 rounding).  The
+    material id is an integer gather (no tangents).
 
     Returns (t, normal, material, idx, root_lo)."""
     t, root_lo_m = sphere_t_matrix(origins, dirs, spheres.center, spheres.radius,

@@ -25,7 +25,6 @@ __all__ = [
     "find_by_name_fuzzy",
     "register_renderer",
     "create",
-    "auto_route",
 ]
 
 
@@ -91,44 +90,6 @@ def create(name: str) -> Callable:
     return d.create()
 
 
-def auto_route(scene, platform: str, include_boxes: bool = False) -> tuple:
-    """Pick the fastest supported forward path for ``mg_auto``/``sm_auto``.
-
-    Returns ``(route, warning)`` with route in {"pallas", "blockwise",
-    "wavefront", "jnp"}; ``warning`` is a message when an accelerator is present but the
-    scene forces the (much slower) jnp wavefront — surfaced via
-    rt_tpu.log.warn_once so the 10-100x slowdown is never silent."""
-    if platform not in ("cpu",):
-        from .ops.pallas_blockwise import MAX_BLOCKWISE_PRIMS, blockwise_supported
-        from .ops.pallas_render import pallas_supported
-
-        if pallas_supported(scene, include_boxes):
-            return "pallas", None
-        if blockwise_supported(scene, include_boxes):
-            # the bounce-major wavefront overtakes the pixel-major scan
-            # once the per-ray primitive scan dominates its sort/state
-            # overheads (measured crossover ~2048 padded primitives);
-            # wavefront_supported gates anything its kernels cannot
-            # render (it covers --boxes since round 5)
-            from .ops.pallas_blockwise import _bucket
-            from .ops.pallas_wavefront import wavefront_supported
-
-            if (_bucket(scene.spheres.count) >= 2048
-                    and wavefront_supported(scene, include_boxes)):
-                return "wavefront", None
-            return "blockwise", None
-        n = scene.spheres.count + scene.planes.count
-        why = (f"{n} primitives > {MAX_BLOCKWISE_PRIMS}"
-               if n > MAX_BLOCKWISE_PRIMS else
-               f"--boxes with {scene.boxes.count} box(es) beyond the "
-               "unrolled kernel's cap")
-        return "jnp", (
-            "auto renderer: scene unsupported by the TPU kernels "
-            f"({why}) — falling back to the jnp wavefront "
-            "(roughly 20x slower than the megakernel)")
-    return "jnp", None
-
-
 def _install_builtins() -> None:
     from . import integrator
 
@@ -150,112 +111,12 @@ def _install_builtins() -> None:
     def _null():
         return integrator.render_null
 
-    def _pallas(personality):
-        def factory():
-            def render(scene, size, key=None, *, seed: int = 0, **opts):
-                from .ops.pallas_render import render_forward_pallas
-
-                opts.pop("rng_mode", None)
-                return render_forward_pallas(
-                    scene, size, seed=seed, personality=personality, **opts
-                )
-            return render
-        return factory
-
     # Registration order matches the reference's renderer cycling UX
     # (main.cpp:181-191 iterates registry order).
     register_renderer("mg_ray_tracer", _mg)
     register_renderer("sm_ray_tracer", _sm)
     register_renderer("rasterizer", _raster)
     register_renderer("null_renderer", _null)
-    # TPU megakernel fast paths (rt_tpu.ops.pallas_render): same estimator,
-    # hardware-PRNG sample streams; falls back with a ValueError on scenes
-    # beyond the unroll limits.
-    register_renderer("mg_pallas", _pallas("mg"))
-    register_renderer("sm_pallas", _pallas("sm"))
-
-    def _blockwise(personality):
-        def factory():
-            def render(scene, size, key=None, *, seed: int = 0, **opts):
-                from .ops.pallas_blockwise import render_forward_blockwise
-
-                return render_forward_blockwise(
-                    scene, size, seed=seed, personality=personality, **opts
-                )
-            return render
-        return factory
-
-    # Blockwise megakernel (rt_tpu.ops.pallas_blockwise): dynamic primitive
-    # tables streamed through VMEM — big scenes, no recompile on edits.
-    register_renderer("mg_blockwise", _blockwise("mg"))
-    register_renderer("sm_blockwise", _blockwise("sm"))
-
-    def _wavefront(personality):
-        def factory():
-            def render(scene, size, key=None, *, seed: int = 0, **opts):
-                from .ops.pallas_wavefront import render_forward_wavefront
-
-                return render_forward_wavefront(
-                    scene, size, seed=seed, personality=personality, **opts
-                )
-            return render
-        return factory
-
-    # Bounce-major wavefront (rt_tpu.ops.pallas_wavefront): ray
-    # compaction + coherence sorting between bounces — the many-thousand-
-    # primitive specialist (measured 1.4-1.8x the pixel-major blockwise
-    # kernel on the 5000-sphere config-5 slice; SLOWER below ~2048
-    # primitives, where per-ray state I/O and sorts outweigh the scan).
-    register_renderer("mg_wavefront", _wavefront("mg"))
-    register_renderer("sm_wavefront", _wavefront("sm"))
-
-    def _auto(personality):
-        def factory():
-            def render(scene, size, key=None, *, seed: int = 0, **opts):
-                import jax
-
-                route, warning = auto_route(
-                    scene, jax.devices()[0].platform,
-                    opts.get("include_boxes", False))
-                if warning is not None:
-                    from .log import warn_once
-
-                    warn_once(("auto", personality, warning), warning)
-                if route == "pallas":
-                    from .ops.pallas_render import render_forward_pallas
-
-                    opts.pop("rng_mode", None)
-                    return render_forward_pallas(
-                        scene, size, seed=seed,
-                        personality=personality, **opts)
-                if route == "blockwise":
-                    from .ops.pallas_blockwise import render_forward_blockwise
-
-                    opts.pop("rng_mode", None)
-                    return render_forward_blockwise(
-                        scene, size, seed=seed,
-                        personality=personality, **opts)
-                if route == "wavefront":
-                    from .ops.pallas_wavefront import render_forward_wavefront
-
-                    opts.pop("rng_mode", None)
-                    opts.pop("rng_impl", None)
-                    return render_forward_wavefront(
-                        scene, size, seed=seed,
-                        personality=personality, **opts)
-                if key is None:
-                    from . import rng
-
-                    key = rng.make_key(seed)
-                return integrator.render_image(
-                    scene, size, key, personality=personality, **opts)
-            return render
-        return factory
-
-    # Auto-select: unrolled megakernel for small scenes on TPU, blockwise
-    # for big ones, jnp wavefront otherwise (boxes, CPU, >16384 prims).
-    register_renderer("mg_auto", _auto("mg"))
-    register_renderer("sm_auto", _auto("sm"))
 
 
 _install_builtins()

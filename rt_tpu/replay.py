@@ -20,8 +20,8 @@ decision is constant in the backward pass anyway.  So:
 ``trace_batch_replay`` composes the two; its value equals ``trace_batch``
 bit-for-bit (tested), and its gradient matches the direct autodiff gradient.
 
-This is also the shape a hand-written Pallas backward wants: the records
-are the compact residuals a megakernel forward would emit.
+This is also the shape a hand-written fused backward would want: the
+records are the compact residuals its forward would emit.
 """
 
 from __future__ import annotations
@@ -133,18 +133,12 @@ def replay_radiance(
     personality: str = "mg",
     max_bounces: Optional[int] = None,
     rng_mode: str = "reference",
-    draws=None,
     prims_axis: Optional[str] = None,
     include_boxes: bool = False,
 ) -> jax.Array:
     """Differentiable radiance with the discrete path structure pinned to
     ``records``.  O(1) work per ray per bounce (plus one-hot contractions
     for parameter fetches).
-
-    ``draws``: optional (unit_vectors (B, N, 3), coins (B, N)) to use
-    instead of regenerating the threefry stream — used when the records
-    come from the Pallas megakernel, whose hardware-PRNG draws the replay
-    must match.
 
     ``prims_axis``: global-winner replay under a shard_map whose mesh
     shards the sphere table along this axis.  ``records.idx`` carries
@@ -167,10 +161,7 @@ def replay_radiance(
 
     def body(state, inp):
         o, d, thr, rad = state
-        if draws is None:
-            b, r = inp
-        else:
-            b, r, ur_in, coin_in = inp
+        b, r = inp
         is_sphere = r.kind == 1
         is_plane = r.kind == 2
         hit = r.kind > 0
@@ -266,12 +257,9 @@ def replay_radiance(
         rad = rad + jnp.where(r.miss[:, None], thr * sky_colour(d), 0.0)
 
         # --- scatter with pinned decisions --------------------------------
-        if draws is None:
-            kb = _rng.fold(key, b)
-            ur = _rng.unit_vector(_rng.fold(kb, 1), (n,), mode=rng_mode)
-            coin = _rng.uniform(_rng.fold(kb, 2), (n,))
-        else:
-            ur, coin = ur_in, coin_in
+        kb = _rng.fold(key, b)
+        ur = _rng.unit_vector(_rng.fold(kb, 1), (n,), mode=rng_mode)
+        coin = _rng.uniform(_rng.fold(kb, 2), (n,))
         brdf_class = classes[scene.materials.type[mat]]
         sc = scatter(scene.materials, brdf_class, mat, d, normal, ur, coin,
                      decisions=(r.reflect_bit, r.lam_deg))
@@ -288,11 +276,8 @@ def replay_radiance(
         jnp.ones((n, 3), jnp.float32),
         jnp.zeros((n, 3), jnp.float32),
     )
-    if draws is None:
-        xs = (jnp.arange(max_bounces), records)
-    else:
-        xs = (jnp.arange(max_bounces), records, draws[0], draws[1])
-    (_, _, _, radiance), _ = jax.lax.scan(body, init, xs)
+    (_, _, _, radiance), _ = jax.lax.scan(
+        body, init, (jnp.arange(max_bounces), records))
     return radiance
 
 

@@ -2,8 +2,8 @@
 
 The reference uses a thread-local ``std::mt19937`` seeded from
 ``std::random_device`` (/root/reference/src/random.cpp:9-17) — fast but
-non-reproducible and meaningless on a SPMD machine.  The TPU-native design
-replaces it with JAX's counter-based threefry: one base key, deterministically
+non-reproducible and meaningless on a SPMD machine.  This design replaces
+it with JAX's counter-based threefry: one base key, deterministically
 folded per (bounce, sample-batch, shard), then a single large ``uniform``
 draw per step feeds every ray lane at once.
 

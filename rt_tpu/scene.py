@@ -1,19 +1,20 @@
 """Scene model + TOML loader.
 
-TPU-native re-design of the reference's scene layer:
+Re-design of the reference's scene layer:
 
 * ``scene.hpp``/``scene.cpp`` (/root/reference/src/scene.cpp:483-643) — the
   TOML schema, search-path resolution, defaults, clamps and aliases are
   reproduced exactly so that reference scene files load unchanged.
 * The SoA tables of ``soa.toml``/``soa.hpp`` (/root/reference/src/soa.toml:6-45)
   become device-resident ``jnp`` arrays in *structure-of-arrays* layout —
-  the reference already chose SoA for SIMD; here the same layout feeds the
-  TPU's 8x128 VPU lanes.  Tables are padded to fixed bucket sizes so every
-  scene in a bucket shares one XLA compilation.
+  the reference already chose SoA for SIMD; here the same layout gives
+  the device contiguous per-field columns over a whole ray batch.  Tables
+  are padded to fixed bucket sizes so every scene in a bucket shares one
+  XLA compilation.
 
 Pytrees are registered dataclasses: array leaves are traced, counts and
 render settings are static metadata (recompiling per size-bucket is the
-TPU-idiomatic replacement for the reference's dynamic ``push_back`` tables).
+XLA replacement for the reference's dynamic ``push_back`` tables).
 """
 
 from __future__ import annotations

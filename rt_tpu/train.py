@@ -1,7 +1,7 @@
 """Inverse-rendering optimization loop with checkpoint/resume.
 
 The reference has no training, checkpointing, or even an image writer
-(SURVEY.md §5); the differentiable TPU framework adds the standard loop:
+(SURVEY.md §5); this framework adds the standard loop:
 optimize scene parameters against a target image with optax, checkpoint
 optimizer state with orbax, resume mid-run.
 """
@@ -52,42 +52,6 @@ def make_train_step(
         return params, opt_state, loss
 
     return jax.jit(step)
-
-
-def make_kernel_train_step(
-    optimizer: optax.GradientTransformation,
-    scene,
-    target,
-    size: tuple[int, int],
-    *,
-    spp: int = 4,
-    max_bounces=None,
-    mesh=None,
-    **opts,
-) -> Callable:
-    """Best fused-kernel train step for the scene: ``step(params,
-    opt_state, seed) -> (params, opt_state, loss)``.
-
-    Routes many-primitive scenes to the wavefront record/reverse pipeline
-    (rt_tpu.ops.pallas_wavefront_grad — 5.28x the pixel-major step on the
-    5000-sphere config, round-5 job 52) and smaller scenes to the
-    pixel-major blockwise fused step.  The TRAIN-step crossover sits much
-    lower than the forward-only one (2048 padded prims): the scan-free
-    backward almost erases the wavefront's small-scene deficit — measured
-    0.96x at 512 padded prims (500-sphere 1080p step, job 57, interleaved)
-    vs 0.60x for the forward alone — so the router switches at the next
-    bucket, 1024.  Both steps rebuild tables from the traced params every
-    call (zero recompiles across updates)."""
-    from .ops.pallas_blockwise import _bucket
-    from .ops.pallas_blockwise_grad import make_bw_train_step
-    from .ops.pallas_wavefront_grad import make_wf_train_step, wf_grad_supported
-
-    s_pad = _bucket(scene.spheres.count)
-    if wf_grad_supported(scene) and s_pad >= 1024:
-        return make_wf_train_step(optimizer, scene, target, size, spp=spp,
-                                  max_bounces=max_bounces, mesh=mesh, **opts)
-    return make_bw_train_step(optimizer, scene, target, size, spp=spp,
-                              max_bounces=max_bounces, mesh=mesh, **opts)
 
 
 def fit(

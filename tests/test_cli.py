@@ -5,29 +5,30 @@ import pytest
 
 from rt_tpu.cli import main
 
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
 
 def test_list(capsys):
     assert main(["--list"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[:4] == ["mg_ray_tracer", "sm_ray_tracer", "rasterizer", "null_renderer"]
-    assert "mg_pallas" in out and "sm_pallas" in out
+    assert out == ["mg_ray_tracer", "sm_ray_tracer", "rasterizer", "null_renderer"]
 
 
 def test_render_to_file(tmp_path, capsys):
     out = str(tmp_path / "img.png")
-    rc = main(["--scene", "/root/reference/scenes/basic.toml", "--renderer", "mg",
+    rc = main(["--scene", os.path.join(SCENES, "basic.toml"), "--renderer", "mg",
                "--size", "32x24", "--spp", "1", "--bounces", "2", "--out", out])
     assert rc == 0
     assert os.path.exists(out)
     assert open(out, "rb").read(4) == b"\x89PNG"
     log = capsys.readouterr().out
     assert "created renderer: mg_ray_tracer" in log
-    assert "scene '/root/reference/scenes/basic.toml' loaded." in log
+    assert f"scene '{os.path.join(SCENES, 'basic.toml')}' loaded." in log
 
 
 def test_npy_output(tmp_path):
     out = str(tmp_path / "img.npy")
-    rc = main(["--scene", "/root/reference/scenes/basic.toml", "--renderer", "rasterizer",
+    rc = main(["--scene", os.path.join(SCENES, "basic.toml"), "--renderer", "rasterizer",
                "--size", "16x12", "--out", out])
     assert rc == 0
     img = np.load(out)
@@ -35,7 +36,7 @@ def test_npy_output(tmp_path):
 
 
 def test_unknown_renderer(capsys):
-    rc = main(["--renderer", "zzz", "--scene", "/root/reference/scenes/basic.toml"])
+    rc = main(["--renderer", "zzz", "--scene", os.path.join(SCENES, "basic.toml")])
     assert rc == 2
     assert "no known renderer" in capsys.readouterr().err
 
@@ -47,13 +48,13 @@ def test_missing_scene(capsys):
 
 
 def test_bad_size(capsys):
-    rc = main(["--size", "banana", "--scene", "/root/reference/scenes/basic.toml"])
+    rc = main(["--size", "banana", "--scene", os.path.join(SCENES, "basic.toml")])
     assert rc == 2
 
 
 def test_fuzzy_renderer_and_mesh(tmp_path):
     out = str(tmp_path / "img.ppm")
-    rc = main(["--scene", "/root/reference/scenes/basic.toml", "--renderer", "sm",
+    rc = main(["--scene", os.path.join(SCENES, "basic.toml"), "--renderer", "sm",
                "--size", "16x12", "--spp", "1", "--bounces", "2",
                "--mesh", "2x2", "--out", out])
     assert rc == 0
@@ -61,7 +62,7 @@ def test_fuzzy_renderer_and_mesh(tmp_path):
 
 
 def test_mesh_rejects_rasterizer(capsys):
-    rc = main(["--scene", "/root/reference/scenes/basic.toml", "--renderer", "rasterizer",
+    rc = main(["--scene", os.path.join(SCENES, "basic.toml"), "--renderer", "rasterizer",
                "--mesh", "4"])
     assert rc == 2
 

@@ -6,6 +6,8 @@ decisions are detached, so FD validation is done on smooth paths (interior
 pixels / parameters that don't cross silhouettes at the probe epsilon).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +16,10 @@ import pytest
 import rt_tpu
 from rt_tpu import diff
 
-SCENE = "/root/reference/scenes/basic.toml"
-DIELECTRIC = "/root/reference/scenes/dielectric.toml"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
+SCENE = os.path.join(SCENES, "basic.toml")
+DIELECTRIC = os.path.join(SCENES, "dielectric.toml")
 
 
 @pytest.fixture(scope="module")
@@ -115,3 +119,29 @@ def test_sm_grads_finite_on_dielectric_scene():
                                   spp=2, max_bounces=4, personality="sm")
     for k, g in grads.items():
         assert np.all(np.isfinite(np.asarray(g))), k
+
+
+@pytest.mark.parametrize("name,idx", [("materials.reflectivity", 0),
+                                      ("materials.albedo", (1, 0))])
+def test_fd_check_agrees_on_material_params(setup, name, idx):
+    s, key, params = setup
+    target = jnp.zeros((24, 32, 3))
+    an, fd, ok = diff.fd_check(params, s, target, (32, 24), key, name, idx,
+                               spp=2, max_bounces=3)
+    assert ok and an != 0.0
+    assert an == pytest.approx(fd, rel=2e-2, abs=1e-4)
+
+
+def test_fd_check_flags_a_wrong_gradient(setup, monkeypatch):
+    s, key, params = setup
+    target = jnp.zeros((24, 32, 3))
+    right = diff.loss_and_grad
+
+    def doubled(*a, **k):
+        loss, grads = right(*a, **k)
+        return loss, jax.tree_util.tree_map(lambda g: 2 * g, grads)
+
+    monkeypatch.setattr(diff, "loss_and_grad", doubled)
+    _, _, ok = diff.fd_check(params, s, target, (32, 24), key,
+                             "materials.reflectivity", 0, spp=2, max_bounces=3)
+    assert not ok

@@ -2,6 +2,7 @@
 multi-process CPU simulation as the fake backend for distributed tests)."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,9 @@ import pytest
 import rt_tpu
 from rt_tpu import diff, dist
 
-SCENE = "/root/reference/scenes/basic.toml"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
+SCENE = os.path.join(SCENES, "basic.toml")
 
 
 @pytest.fixture(scope="module")

@@ -14,7 +14,7 @@ from rt_tpu.integrator import render_image, render_null, sky_colour, trace_batch
 
 import ref_impl
 
-REF_SCENES = "/root/reference/scenes"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
 
 def _mirror_rng(key, n):
@@ -35,7 +35,7 @@ def _mirror_rng(key, n):
     ("sm", ref_impl.SM_TABLE, "dielectric.toml"),
 ])
 def test_trace_matches_mirror(personality, table, scene_file):
-    s = rt_tpu.load(os.path.join(REF_SCENES, scene_file))
+    s = rt_tpu.load(os.path.join(SCENES, scene_file))
     snp = ref_impl.scene_to_np(s)
     cam = ref_impl.camera_to_np(s)
 
@@ -56,7 +56,7 @@ def test_trace_matches_mirror(personality, table, scene_file):
 
 
 def test_render_matches_mirror_end_to_end():
-    s = rt_tpu.load(os.path.join(REF_SCENES, "basic.toml"))
+    s = rt_tpu.load(os.path.join(SCENES, "basic.toml"))
     snp = ref_impl.scene_to_np(s)
     cam = ref_impl.camera_to_np(s)
     w, h = 32, 32
@@ -120,7 +120,7 @@ def test_null_renderer_black():
 
 
 def test_render_jits_cleanly():
-    s = rt_tpu.load(os.path.join(REF_SCENES, "basic.toml"))
+    s = rt_tpu.load(os.path.join(SCENES, "basic.toml"))
     f = jax.jit(lambda sc, k: render_image(sc, (16, 12), k, spp=2, max_bounces=3))
     img1 = f(s, _rng.make_key(0))
     img2 = f(s, _rng.make_key(0))

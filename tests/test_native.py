@@ -16,6 +16,8 @@ import pytest
 import rt_tpu
 from rt_tpu import _native
 
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -44,8 +46,8 @@ def test_pack_rgba8888_reference_semantics():
 
 
 @pytest.mark.parametrize("pers,scene_path,tol", [
-    ("mg", "/root/reference/scenes/basic.toml", 0.015),
-    ("sm", "/root/reference/scenes/dielectric.toml", 0.015),
+    ("mg", os.path.join(SCENES, "basic.toml"), 0.015),
+    ("sm", os.path.join(SCENES, "dielectric.toml"), 0.015),
 ])
 def test_native_tracer_statistical_parity(pers, scene_path, tol):
     _ensure_native()
@@ -68,7 +70,7 @@ def test_native_sm_differs_from_mg_on_glass():
     # the dielectric family must actually refract: the sm and mg frames of
     # dielectric.toml must differ measurably (mg maps glass to lambert)
     _ensure_native()
-    s = rt_tpu.load("/root/reference/scenes/dielectric.toml")
+    s = rt_tpu.load(os.path.join(SCENES, "dielectric.toml"))
     a, _ = _native.render_cpu(s, (100, 75), spp=16, max_bounces=8,
                               personality="sm")
     b, _ = _native.render_cpu(s, (100, 75), spp=16, max_bounces=8,

@@ -2,6 +2,8 @@
 reference's absent TSan/race jobs, SURVEY.md §5): renders and gradients
 must be NaN/Inf-free under jax_debug_nans."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +11,8 @@ import pytest
 
 import rt_tpu
 from rt_tpu import diff
+
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
 
 @pytest.fixture(autouse=True)
@@ -19,21 +23,21 @@ def nan_debugging():
 
 
 def test_render_nan_free_basic():
-    s = rt_tpu.load("/root/reference/scenes/basic.toml")
+    s = rt_tpu.load(os.path.join(SCENES, "basic.toml"))
     img = rt_tpu.integrator.render_image(s, (24, 16), rt_tpu.rng.make_key(0),
                                          spp=2, max_bounces=4)
     assert np.all(np.isfinite(np.asarray(img)))
 
 
 def test_render_nan_free_dielectric():
-    s = rt_tpu.load("/root/reference/scenes/dielectric.toml")
+    s = rt_tpu.load(os.path.join(SCENES, "dielectric.toml"))
     img = rt_tpu.integrator.render_image(s, (24, 16), rt_tpu.rng.make_key(0),
                                          spp=2, max_bounces=4, personality="sm")
     assert np.all(np.isfinite(np.asarray(img)))
 
 
 def test_grads_nan_free_under_debug():
-    s = rt_tpu.load("/root/reference/scenes/basic.toml")
+    s = rt_tpu.load(os.path.join(SCENES, "basic.toml"))
     params = diff.extract_params(s)
     target = jnp.zeros((16, 24, 3))
     for mode in ("autodiff", "replay"):
@@ -60,208 +64,48 @@ def test_degenerate_geometry_no_nans():
     assert np.all(np.isfinite(np.asarray(img)))
 
 
-# ---------------------------------------------------------------------------
-# Adversarial geometry through the PALLAS kernels (interpret mode + portable
-# hash RNG): the numerical tricks live in the kernels (guarded sqrt at the
-# TIR boundary, 1e-12/1e-30 clamps, tie selects at exactly-equal t), so the
-# degenerate suite must exercise those paths, not just jnp (round-2 VERDICT
-# item 8).
-# ---------------------------------------------------------------------------
-
+# Adversarial geometry: r=0 sphere, exact duplicates (tie at identical t), a
+# glass sphere the camera ray grazes tangentially (disc ~ 0), a sphere
+# tangent to the plane, and a plane nearly parallel to the view rays.
 DEGENERATE = (
-    "samples_per_pixel = 2\n"
-    "max_bounces = 6\n"
     "materials = [ { type = 'metal', albedo = 'white', roughness = 0.0 },\n"
     "              { type = 'lambert', albedo = 'red' },\n"
     "              { type = 'dielectric', albedo = 'white' } ]\n"
-    # r=0 sphere, exact duplicates (tie at identical t), a glass sphere the
-    # camera ray grazes tangentially (disc ~ 0), and a sphere tangent to
-    # the plane
     "spheres = [ { material = 0, position = [0,1,-3], radius = 0.0 },\n"
     "            { material = 1, position = [0,1,-3], radius = 0.5 },\n"
     "            { material = 1, position = [0,1,-3], radius = 0.5 },\n"
     "            { material = 2, position = [1.5,0.5,-3], radius = 0.5 },\n"
     "            { material = 1, position = [-1.5,0.5,-4], radius = 0.5 } ]\n"
-    # grazing plane: normal nearly perpendicular to view rays
     "planes = [ { material = 1, position = 'origin', normal = 'up' },\n"
     "           { material = 1, position = [0,0,-50], normal = 'backward' } ]\n"
 )
 
 
-def _deg_scene():
-    return rt_tpu.loads(DEGENERATE)
+@pytest.mark.parametrize("personality", ["mg", "sm"])
+def test_degenerate_scene_render_finite(personality):
+    s = rt_tpu.loads(DEGENERATE)
+    img = rt_tpu.integrator.render_image(s, (32, 24), rt_tpu.rng.make_key(3),
+                                         spp=2, max_bounces=6,
+                                         personality=personality)
+    assert np.all(np.isfinite(np.asarray(img)))
 
 
-def test_pallas_forward_degenerate_finite_and_jnp_parity():
-    from rt_tpu.ops.pallas_render import render_forward_pallas
-
-    s = _deg_scene()
-    img = np.asarray(render_forward_pallas(
-        s, (32, 24), seed=3, spp=1, max_bounces=6, center_sample=True,
-        rng_impl="hash", interpret=True, gamma=False))
-    assert np.all(np.isfinite(img))
-    # deterministic centre-sample primary structure matches jnp at 1 bounce
-    a = np.asarray(rt_tpu.integrator.render_image(
-        s, (32, 24), rt_tpu.rng.make_key(0), spp=1, max_bounces=1,
-        gamma=False))
-    b = np.asarray(render_forward_pallas(
-        s, (32, 24), seed=0, spp=1, max_bounces=1, center_sample=True,
-        rng_impl="hash", interpret=True, gamma=False))
-    np.testing.assert_allclose(a, b, atol=2e-5)
-
-
-def test_pallas_forward_tangent_ray_exact():
-    """A ray exactly tangent to a sphere (disc == 0 analytically): finite
-    output through the kernel's guarded sqrt."""
-    from rt_tpu.ops.pallas_render import render_forward_pallas
-
-    s = rt_tpu.loads(
-        "materials = [ { type = 'dielectric', albedo = 'white' } ]\n"
-        # camera at origin looking -z; sphere centred at (1, 0, -5) r=1 ->
-        # the ray through (0,0,-1) direction is tangent at x=0
-        "camera = { position = [0, 0, 0], direction = 'backward' }\n"
-        "spheres = [ { material = 0, position = [1.0, 0.0, -5.0], radius = 1.0 } ]\n"
-    )
-    img = np.asarray(render_forward_pallas(
-        s, (64, 48), seed=1, spp=2, max_bounces=4,
-        rng_impl="hash", interpret=True))
-    assert np.all(np.isfinite(img))
-
-
-def test_pallas_fused_grad_degenerate_finite():
-    """The fused fwd+bwd mono kernel survives r=0/duplicate/tangent
-    geometry: finite loss and gradients (detached-sampling convention)."""
-    from rt_tpu.ops.pallas_grad import pallas_mse_loss_and_grad
-
-    s = _deg_scene()
+@pytest.mark.parametrize("personality", ["mg", "sm"])
+def test_degenerate_scene_replay_matches_autodiff(personality):
+    """Replay pins the same discrete path structure autodiff differentiates
+    through, so on the adversarial scene both give the same value and
+    gradients, all finite."""
+    s = rt_tpu.loads(DEGENERATE)
     params = diff.extract_params(s)
-    target = jnp.zeros((24, 32, 3), jnp.float32)
-    loss, grads = pallas_mse_loss_and_grad(
-        params, s, target, (32, 24), seed=7, spp=2, max_bounces=4,
-        rng_impl="hash", interpret=True)
-    assert np.isfinite(float(loss))
-    for k, g in grads.items():
-        assert np.all(np.isfinite(np.asarray(g))), k
-
-
-def test_pallas_fused_grad_matches_replay_on_degenerate():
-    """Kernel gradients vs the jnp replay pipeline on the degenerate scene
-    fed the SAME draws (records from the kernel): the adjoints of the
-    guarded expressions must agree, not just stay finite."""
-    from rt_tpu.ops.pallas_grad import pallas_mse_loss_and_grad
-    from rt_tpu.ops.pallas_render import render_record_pallas, records_to_flat
-    from rt_tpu import replay as rp
-
-    s = _deg_scene()
-    params = diff.extract_params(s)
-    size = (32, 24)
-    target = jnp.zeros((24, 32, 3), jnp.float32)
-    loss, grads = pallas_mse_loss_and_grad(
-        params, s, target, size, seed=5, spp=1, max_bounces=3,
-        rng_impl="hash", interpret=True)
-
-    # replay reference: records + draws from the SAME kernel stream (the
-    # mono step derives sample s's seed as seed*100003 + s)
-    rad, recs = render_record_pallas(
-        s, size, seed=5 * 100003, max_bounces=3, rng_impl="hash",
-        interpret=True)
-    n = size[0] * size[1]
-    flat = records_to_flat(recs, n, 3)
-    records = rp.PathRecords(
-        kind=flat["kind"], idx=flat["idx"], root_lo=flat["root_lo"],
-        live_in=flat["live_in"], miss=flat["miss"],
-        alive_out=flat["alive_out"], reflect_bit=flat["reflect_bit"],
-        lam_deg=flat["lam_deg"])
-
-    from rt_tpu.camera import generate_rays
-    import jax as _jax
-
-    grid = rt_tpu.integrator._pixel_grid(size)
-    jitter = flat["jitter"]
-
-    def loss_fn(p):
-        sc = diff.apply_params(s, p)
-        o, d = generate_rays(sc.camera, size, grid + jitter)
-        r = rp.replay_radiance(sc, o, d, None, records, max_bounces=3,
-                               draws=(flat["ur"], flat["coin"]))
-        img = r.reshape(size[1], size[0], 3)
-        return jnp.mean((img - target) ** 2)
-
-    l2, g2 = _jax.value_and_grad(loss_fn)(params)
-    assert float(loss) == pytest.approx(float(l2), rel=1e-5)
-    for k in grads:
-        np.testing.assert_allclose(np.asarray(grads[k]), np.asarray(g2[k]),
-                                   rtol=1e-3, atol=1e-6, err_msg=k)
-
-
-def test_blockwise_forward_degenerate_finite_and_cull_exact():
-    """The blockwise kernels see the same adversarial geometry the unrolled
-    kernels survive (round-3 VERDICT item 6): r=0 spheres, exact duplicates
-    and tangent rays through the lean scan, AND through the conservative
-    cull whose bounds must stay exact on degenerate blocks (zero-radius
-    members, duplicate centres)."""
-    from rt_tpu.ops.pallas_blockwise import render_forward_blockwise
-
-    s = _deg_scene()
-    kw = dict(spp=2, max_bounces=6, seed=9, rng_impl="hash", interpret=True)
-    plain = np.asarray(render_forward_blockwise(s, (32, 24), cull=False,
-                                                **kw))
-    assert np.all(np.isfinite(plain))
-    # forced cull + Morton order on the degenerate table: bit-exact argmin
-    culled = np.asarray(render_forward_blockwise(
-        s, (32, 24), cull=True, order="morton", block=8, **kw))
-    np.testing.assert_array_equal(plain, culled)
-    # deterministic centre-sample primary structure matches jnp at 1 bounce
-    a = np.asarray(rt_tpu.integrator.render_image(
-        s, (32, 24), rt_tpu.rng.make_key(0), spp=1, max_bounces=1,
-        gamma=False))
-    b = np.asarray(render_forward_blockwise(
-        s, (32, 24), seed=0, spp=1, max_bounces=1, center_sample=True,
-        rng_impl="hash", interpret=True, gamma=False))
-    np.testing.assert_allclose(a, b, atol=2e-5)
-
-
-def test_blockwise_grad_degenerate_finite_and_fd():
-    """The blockwise fused fwd+bwd kernel on the degenerate scene: finite
-    loss/gradients, and the smooth-path reflectivity gradient still matches
-    the pipeline's own finite differences (guarded adjoints don't just stay
-    finite — they stay correct)."""
-    from rt_tpu.ops.pallas_blockwise_grad import bw_mse_loss_and_grad
-
-    s = _deg_scene()
-    params = diff.extract_params(s)
-    target = jnp.zeros((24, 32, 3), jnp.float32)
-    kw = dict(spp=2, max_bounces=4, rng_impl="hash", interpret=True)
-    loss, grads = bw_mse_loss_and_grad(params, s, target, (32, 24), seed=7,
-                                       **kw)
-    assert np.isfinite(float(loss))
-    for k, g in grads.items():
-        assert np.all(np.isfinite(np.asarray(g))), k
-    name = "materials.reflectivity"
-    eps = 1e-3
-    hi = dict(params)
-    hi[name] = params[name].at[1].set(params[name][1] + eps)
-    lo = dict(params)
-    lo[name] = params[name].at[1].set(params[name][1] - eps)
-    lh, _ = bw_mse_loss_and_grad(hi, s, target, (32, 24), seed=7, **kw)
-    ll, _ = bw_mse_loss_and_grad(lo, s, target, (32, 24), seed=7, **kw)
-    fd = (float(lh) - float(ll)) / (2 * eps)
-    an = float(grads[name][1])
-    assert abs(an - fd) <= max(0.05 * abs(fd), 1e-5), (an, fd)
-
-
-def test_wavefront_degenerate_matches_blockwise():
-    """The bounce-major wavefront pipeline (compaction + sorting) on the
-    degenerate scene tracks the pixel-major kernel — the sort must not
-    corrupt rays whose guarded expressions sit exactly on the clamps."""
-    from rt_tpu.ops.pallas_blockwise import render_forward_blockwise
-    from rt_tpu.ops.pallas_wavefront import render_forward_wavefront
-
-    s = _deg_scene()
-    kw = dict(spp=2, max_bounces=6, seed=9, interpret=True)
-    a = np.asarray(render_forward_blockwise(s, (32, 24), rng_impl="hash",
-                                            **kw))
-    b = np.asarray(render_forward_wavefront(s, (32, 24), cull=True,
-                                            order="morton", block=8, **kw))
-    assert np.all(np.isfinite(b))
-    np.testing.assert_allclose(a, b, atol=2e-5)
+    target = jnp.zeros((18, 24, 3))
+    out = {}
+    for mode in ("autodiff", "replay"):
+        out[mode] = diff.loss_and_grad(
+            params, s, target, (24, 18), rt_tpu.rng.make_key(5),
+            spp=2, max_bounces=4, personality=personality, grad_mode=mode)
+    (la, ga), (lr, gr) = out["autodiff"], out["replay"]
+    assert float(la) == pytest.approx(float(lr), rel=1e-6)
+    for k in ga:
+        a, r = np.asarray(ga[k]), np.asarray(gr[k])
+        assert np.all(np.isfinite(r)), k
+        np.testing.assert_allclose(r, a, rtol=1e-4, atol=1e-6, err_msg=k)

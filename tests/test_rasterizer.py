@@ -7,11 +7,11 @@ from rt_tpu.integrator import render_rasterizer
 
 import ref_impl
 
-REF_SCENES = "/root/reference/scenes"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
 
 def test_rasterizer_matches_mirror_basic():
-    s = rt_tpu.load(os.path.join(REF_SCENES, "basic.toml"))
+    s = rt_tpu.load(os.path.join(SCENES, "basic.toml"))
     img = np.asarray(render_rasterizer(s, (48, 32)))
     expected = ref_impl.rasterize_np(ref_impl.scene_to_np(s), ref_impl.camera_to_np(s), (48, 32))
     np.testing.assert_allclose(img, expected, atol=2e-4, rtol=1e-3)

@@ -5,7 +5,8 @@ from rt_tpu import renderer as reg
 
 def test_builtins_registered_in_order():
     names = [d.name for d in reg.all_renderers()]
-    assert names[:4] == ["mg_ray_tracer", "sm_ray_tracer", "rasterizer", "null_renderer"]
+    # exactly the reference's four renderers (renderers/*.cpp)
+    assert names == ["mg_ray_tracer", "sm_ray_tracer", "rasterizer", "null_renderer"]
 
 
 def test_find_by_name_and_key():

@@ -1,6 +1,8 @@
 """Replay-mode gradients: value equality with the direct trace, gradient
 equality with direct autodiff."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,8 +13,10 @@ from rt_tpu import diff
 from rt_tpu.integrator import trace_batch
 from rt_tpu.replay import replay_radiance, trace_batch_recorded, trace_batch_replay
 
-SCENE = "/root/reference/scenes/basic.toml"
-DIELECTRIC = "/root/reference/scenes/dielectric.toml"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
+
+SCENE = os.path.join(SCENES, "basic.toml")
+DIELECTRIC = os.path.join(SCENES, "dielectric.toml")
 
 
 def _rays(scene, size=(24, 16)):

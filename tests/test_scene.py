@@ -6,13 +6,13 @@ import pytest
 import rt_tpu
 from rt_tpu.scene import MATERIAL_TYPES, load, loads, make_procedural_scene
 
-REF_SCENES = "/root/reference/scenes"
+SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
 
 def test_load_reference_basic():
     # Literal values from /root/reference/scenes/basic.toml via the
     # deserialization rules of scene.cpp:483-618.
-    s = load(os.path.join(REF_SCENES, "basic.toml"))
+    s = load(os.path.join(SCENES, "basic.toml"))
     assert s.samples_per_pixel == 30  # commented out in the file → default
     assert s.max_bounces == 10
     assert np.allclose(np.asarray(s.camera.position), [0, 1, 3])
@@ -45,7 +45,7 @@ def test_load_reference_basic():
 
 
 def test_load_reference_dielectric():
-    s = load(os.path.join(REF_SCENES, "dielectric.toml"))
+    s = load(os.path.join(SCENES, "dielectric.toml"))
     assert s.samples_per_pixel == 200
     assert s.materials.count == 7
     t = np.asarray(s.materials.type)
@@ -127,7 +127,7 @@ def test_missing_scene_raises():
 def test_scene_is_pytree():
     import jax
 
-    s = load(os.path.join(REF_SCENES, "basic.toml"))
+    s = load(os.path.join(SCENES, "basic.toml"))
     leaves = jax.tree_util.tree_leaves(s)
     assert all(hasattr(l, "dtype") for l in leaves)
     s2 = jax.tree_util.tree_map(lambda x: x, s)

@@ -102,32 +102,3 @@ def test_checkpoint_npz_fallback_keeps_opt_state(tmp_path, scene, monkeypatch):
     grads = {k: jnp.ones_like(v) * 0.05 for k, v in r_params.items()}
     updates, _ = opt.update(grads, r_opt, r_params)
     optax.apply_updates(r_params, updates)
-
-
-def test_kernel_train_step_router():
-    # small scenes -> the blockwise fused step; many-primitive scenes ->
-    # the wavefront record/reverse step (train crossover at 1024 padded
-    # prims — below the forward-only 2048, train.py docstring)
-    import optax
-
-    import rt_tpu
-    from rt_tpu import train
-    from rt_tpu.ops import pallas_blockwise_grad as bwg
-    from rt_tpu.ops import pallas_wavefront_grad as wfg
-
-    opt = optax.adam(1e-2)
-    small = rt_tpu.load("/root/repo/scenes/basic.toml")
-    big = rt_tpu.scene.make_procedural_scene(2100)
-    tgt = jnp.zeros((16, 24, 3), jnp.float32)
-    calls = []
-    orig_bw, orig_wf = bwg.make_bw_train_step, wfg.make_wf_train_step
-    try:
-        bwg.make_bw_train_step = lambda *a, **k: calls.append("bw")
-        wfg.make_wf_train_step = lambda *a, **k: calls.append("wf")
-        # the router imports from the modules at call time
-        train.make_kernel_train_step(opt, small, tgt, (24, 16))
-        train.make_kernel_train_step(opt, big, tgt, (24, 16))
-    finally:
-        bwg.make_bw_train_step = orig_bw
-        wfg.make_wf_train_step = orig_wf
-    assert calls == ["bw", "wf"]
